@@ -2,7 +2,7 @@
 
 The stream analyzers in the reference are inherently sequential bit parsers
 (/root/reference/xport.c, flags264.c, l1dump.c, h264_parse/) — the wrong
-shape for a TPU — so, like the reference, they are native code here
+shape for an accelerator — so, like the reference, they are native code here
 (SURVEY.md §7 step 8).  This module lazily builds them with make on first
 use and exposes subprocess runners for the CLI and tests.
 """

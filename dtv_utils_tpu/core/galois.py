@@ -1,4 +1,4 @@
-"""Galois-field arithmetic designed for the TPU MXU.
+"""Galois-field arithmetic as GF(2) integer matmuls.
 
 The key idea: GF(2^m) codes (Reed-Solomon, BCH) are linear over GF(2) when
 codewords are viewed as bit vectors.  So instead of byte-serial LFSR encoders
@@ -78,7 +78,7 @@ class GF:
         """Systematic RS encode (batch), returning parity symbols.
 
         Plain polynomial-division LFSR over GF — the *table-build-time* oracle
-        used to derive MXU bit-matrices and as a test reference.
+        used to derive GF(2) bit-matrices and as a test reference.
         msg: [..., k] ints.  Returns [..., nroots].
         """
         msg = np.asarray(msg, dtype=np.int64)
@@ -129,11 +129,11 @@ def rs_parity_bitmatrix(gf: GF, k_sym: int, genpoly: np.ndarray,
 
 @functools.partial(jax.jit, static_argnames=())
 def gf2_matmul(x_bits: jax.Array, mat_bits: jax.Array) -> jax.Array:
-    """Binary matmul on the MXU: (x @ M) mod 2.
+    """Binary matmul: (x @ M) mod 2.
 
     x_bits: [..., K] in {0,1} (any int dtype), mat_bits: [K, P] in {0,1}.
-    Returns uint8 [..., P].  int8 x int8 → int32 accumulate keeps the MXU in
-    its native integer path; K up to ~2^23 stays exact.
+    Returns uint8 [..., P].  int8 x int8 products accumulate exactly in
+    int32, so K up to ~2^23 stays exact.
     """
     acc = jax.lax.dot_general(
         x_bits.astype(jnp.int8), mat_bits.astype(jnp.int8),

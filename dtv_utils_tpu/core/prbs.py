@@ -1,7 +1,7 @@
 """LFSR / PRBS sequences, precomputed on the host.
 
 Scramblers in every DTV standard are periodic LFSR streams XORed onto data.
-On a TPU the right formulation is: generate the whole (short) period once in
+On an accelerator the right formulation is: generate the whole (short) period once in
 NumPy, then the device-side scrambler is a vectorized XOR with a broadcast
 mask — no sequential state on device at all.  Stream phase across sequence
 shards reduces to an integer offset carried in the chain state.

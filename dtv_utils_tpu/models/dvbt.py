@@ -34,7 +34,7 @@ _GUARDS = {"1/32": GuardInterval.G1_32, "1/16": GuardInterval.G1_16,
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="dtv dvbt-mod",
-        description="Modulate a DVB-T signal (TPU) — dvbt-blade.py surface")
+        description="Modulate a DVB-T signal — dvbt-blade.py surface")
     p.add_argument("-m", "--mode", default="t8k",
                    help="# of carriers. Options: t2k, t8k (default).")
     p.add_argument("-c", "--channel", default=8, type=int, metavar="CH",

@@ -63,7 +63,7 @@ def _print_tables(cfg: Dvbt2Config, profile: str) -> int:
 def cli(argv: list[str]) -> int:
     p = argparse.ArgumentParser(
         prog="dtv dvbt2-mod",
-        description="Modulate a DVB-T2 signal (TPU) — dvbt2-blade surface")
+        description="Modulate a DVB-T2 signal — dvbt2-blade surface")
     p.add_argument("--profile", default="blade", choices=sorted(PROFILES),
                    help="parameter profile: blade (default) or bbc")
     p.add_argument("-n", "--frames", default=None, type=int,

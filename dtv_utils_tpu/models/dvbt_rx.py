@@ -22,7 +22,7 @@ from dtv_utils_tpu.core.config import DvbtConfig
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="dtv dvbt-rx",
-        description="Demodulate a DVB-T IQ stream (TPU) back to TS")
+        description="Demodulate a DVB-T IQ stream back to TS")
     p.add_argument("-m", "--mode", default="t8k",
                    help="# of carriers. Options: t2k, t8k (default).")
     p.add_argument("-c", "--channel", default=8, type=int, metavar="CH",

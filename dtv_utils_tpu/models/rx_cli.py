@@ -18,7 +18,7 @@ import numpy as np
 def dvbt2_rx_cli(argv: list[str]) -> int:
     p = argparse.ArgumentParser(
         prog="dtv dvbt2-rx",
-        description="Demodulate a DVB-T2 IQ stream (TPU) back to TS")
+        description="Demodulate a DVB-T2 IQ stream back to TS")
     p.add_argument("--profile", default="blade",
                    help="parameter profile: blade (default) or bbc")
     p.add_argument("--papr", action="store_true",

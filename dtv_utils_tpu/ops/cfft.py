@@ -1,103 +1,40 @@
-"""FFT on the MXU: four-step (Bailey) DFT as a pair of complex matmuls.
+"""Unnormalized DFTs on float32 re/im rails and pairs, through ``jnp.fft``.
 
 The reference chains lean on FFTW (``fft.fft_vcc(carriers, False, ...)``
-at /root/reference/dvbt-blade.py:187 — an *unnormalized inverse* FFT with 10
-CPU threads).  The TPU backend here exposes no FFT and no complex dtype at
-all, and TPU FLOPs live in the 128x128 systolic array — so the TPU-native
-formulation IS the matmul one:
+at the reference dvbt-blade.py:187 — an *unnormalized inverse* FFT).
+Here the transform is XLA's FFT on complex64 (cuFFT on the GPU).  The
+chains keep IQ as float32 re/im rails (core/cplx.py), so the rails are
+joined into complex64 for the transform and split again after it.
 
-  N = n1*n2, input index n = n1*a + b, output index k = n2*c + d:
-      X[n2 c + d] = sum_b W_n1^{s cb} * ( W_N^{s bd} * sum_a x[n1 a + b] W_n2^{s ad} )
-  i.e. reshape -> [*, n1, n2] matmul DFT(n2) -> twiddle -> DFT(n1) matmul
-  -> reshape.  With n2 = 256 and n1 = N/256 <= 128 both matmuls sit in the
-  MXU sweet spot, and a whole OFDM superframe batches over the leading axis.
-
-Complex values are float32 pairs (core/cplx.py); each complex matmul is 4
-real dot_generals with Precision.HIGHEST (f32-exact on TPU).  Cost per
-transform is N*(n1+n2) complex MACs — ~40x the FLOPs of radix-2, repaid
-~100x over by MXU throughput vs the vector unit, with zero sequential
-stages and no transposes XLA can't fuse.
-
-Accuracy: ~1e-6 relative vs float64 numpy.fft for N <= 32768 (tested).
+The unnormalized inverse is computed as conj(FFT(conj(x))): a sign flip on
+each side of the forward transform, so no 1/n scale is applied and then
+undone in float32.
 """
 
 from __future__ import annotations
 
-import functools
-
 import jax
 import jax.numpy as jnp
-import numpy as np
-
-_HI = jax.lax.Precision.HIGHEST
-
-
-@functools.cache
-def _plan(n: int, sign: int) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """(Wn2 [n2, n2, 2], twiddle [n1, n2, 2], Wn1 [n1, n1, 2]) float32."""
-    assert n & (n - 1) == 0 and n >= 2, f"power-of-two size required: {n}"
-    n2 = min(n, 256)
-    n1 = n // n2
-    s = 1j * sign
-    a = np.arange(n2)
-    w2 = np.exp(s * 2 * np.pi * np.outer(a, a) / n2)
-    b = np.arange(n1)
-    tw = np.exp(s * 2 * np.pi * np.outer(b, a) / n)          # [n1, n2]
-    w1 = np.exp(s * 2 * np.pi * np.outer(b, b) / n1)
-    to_pair = lambda c: np.stack([c.real, c.imag], -1).astype(np.float32)
-    return to_pair(w2), to_pair(tw), to_pair(w1)
-
-
-def _cmm_right_ri(xr, xi, w):
-    """rails [..., m, k] @ pair-plan [k, p, 2] -> rails [..., m, p]."""
-    wr = jnp.asarray(w[..., 0])
-    wi = jnp.asarray(w[..., 1])
-    dot = functools.partial(jnp.matmul, precision=_HI)
-    return (dot(xr, wr) - dot(xi, wi), dot(xr, wi) + dot(xi, wr))
-
-
-def _cmm_left_ri(w, xr, xi):
-    """pair-plan [c, b, 2] @ rails [..., b, d] -> rails [..., c, d]."""
-    wr = jnp.asarray(w[..., 0])
-    wi = jnp.asarray(w[..., 1])
-    ein = functools.partial(jnp.einsum, precision=_HI)
-    return (ein("cb,...bd->...cd", wr, xr) - ein("cb,...bd->...cd", wi, xi),
-            ein("cb,...bd->...cd", wr, xi) + ein("cb,...bd->...cd", wi, xr))
 
 
 def fft_ri(xr: jnp.ndarray, xi: jnp.ndarray, sign: int = -1
            ) -> tuple[jnp.ndarray, jnp.ndarray]:
     """Unnormalized DFT along the LAST axis of separate re/im rails.
 
-    The rails form is the TPU-native one: every intermediate stays a pure
-    float32 array with the long transform axis minor — no [..., 2] pair
-    stacks between the sub-steps (a pair-minor stack materialized by XLA
-    gets the 128-lane tile pad: 64x HBM).  fft_pairs/fft_rails are thin
-    wrappers over this.
+    sign=-1: forward DFT.  sign=+1: inverse*n (the FFTW/`fft_vcc` reverse
+    convention the reference chains are calibrated to).
     """
-    n = xr.shape[-1]
-    w2, tw, w1 = _plan(n, sign)
-    n2 = w2.shape[0]
-    n1 = w1.shape[0]
-    if n1 == 1:
-        return _cmm_right_ri(xr, xi, w2)
-    lead = xr.shape[:-1]
-    gr = jnp.swapaxes(xr.reshape(*lead, n2, n1), -2, -1)  # [..., n1, n2]
-    gi = jnp.swapaxes(xi.reshape(*lead, n2, n1), -2, -1)
-    sr, si = _cmm_right_ri(gr, gi, w2)                # DFT over a (len n2)
-    twr = jnp.asarray(tw[..., 0])
-    twi = jnp.asarray(tw[..., 1])
-    tr = sr * twr - si * twi                          # twiddle W_N^{bd}
-    ti = sr * twi + si * twr
-    outr, outi = _cmm_left_ri(w1, tr, ti)             # DFT over b (len n1)
-    return outr.reshape(*lead, n), outi.reshape(*lead, n)
+    if sign < 0:
+        y = jnp.fft.fft(jax.lax.complex(xr, xi))
+        return jnp.real(y), jnp.imag(y)
+    y = jnp.fft.fft(jax.lax.complex(xr, -xi))
+    return jnp.real(y), -jnp.imag(y)
 
 
 def fft_pairs(x: jnp.ndarray, sign: int = -1) -> jnp.ndarray:
     """Unnormalized DFT along axis -2 of a pair array [..., n, 2].
 
-    sign=-1: forward DFT.  sign=+1: inverse*n (the FFTW/`fft_vcc` reverse
-    convention the reference chains are calibrated to — divide by n for the
+    sign=-1: forward DFT.  sign=+1: inverse*n (divide by n for the
     mathematical inverse).
     """
     outr, outi = fft_ri(x[..., 0], x[..., 1], sign)

@@ -2,7 +2,7 @@
 
 The reference realizes interleaving with byte-shuffling delay lines
 (GNU Radio convolutional_interleaver at /root/reference/dvbt-blade.py:181)
-and per-bit index loops.  On TPU every interleaver here is a precomputed
+and per-bit index loops.  Here every interleaver is a precomputed
 index array + one gather, which XLA fuses with its neighbours.
 
 The Forney convolutional interleaver is the only one with cross-block state;

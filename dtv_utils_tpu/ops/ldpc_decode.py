@@ -1,4 +1,4 @@
-"""Normalized min-sum LDPC decoder for the DVB-T2/S2 IRA codes, TPU-native.
+"""Normalized min-sum LDPC decoder for the DVB-T2/S2 IRA codes.
 
 Receiver-side counterpart of the encoder in tx/dvbt2.py (the reference's
 decoding happens in consumer silicon; its encoder is the gr-dtv block
@@ -14,7 +14,7 @@ Check equations of the IRA code (c = [info | parity]):
 i.e. every check touches its accumulator taps plus the two dual-diagonal
 parity bits (one for p = 0).
 
-TPU formulation: the Tanner graph is three flat edge arrays (variable
+Array formulation: the Tanner graph is three flat edge arrays (variable
 index, check index) sorted by check; one min-sum iteration is
 
   * two ``segment_min`` passes (min / second-min of |messages| per check,

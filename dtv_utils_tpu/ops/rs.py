@@ -1,4 +1,4 @@
-"""Reed-Solomon encoding as an MXU bit-matrix multiply.
+"""Reed-Solomon encoding as a GF(2) bit-matrix multiply.
 
 The reference encodes RS(204,188) byte-serially through a GF(256) LFSR
 (GNU Radio block instantiated at /root/reference/dvbt-blade.py:180 with

@@ -1,12 +1,12 @@
-"""Reed-Solomon error-correcting decoder, TPU-native.
+"""Reed-Solomon error-correcting decoder.
 
 Receiver-side counterpart of ops/rs.py (the reference system has no RS
 decoder — receiving is done by consumer hardware; this completes the
 closed loop the reference validates with real receivers, README:26-28).
 
-Design for the TPU:
+Design as array programs:
   * syndromes are GF(2)-linear in the codeword bits, so a whole batch of
-    packets computes ALL syndromes as ONE int8 MXU matmul
+    packets computes ALL syndromes as ONE int8 matmul
     ``synd_bits = cw_bits @ M`` — the same trick as the encoder;
   * Berlekamp-Massey runs 2t fixed, branchless iterations (jnp.where for
     the conditional update) on [batch, t+1] polynomial registers;
@@ -88,7 +88,7 @@ class RsDecoder:
         return self.d_exp[(self.gf.q - 1) - self.d_log[a]]
 
     def syndromes(self, cw_words: jnp.ndarray) -> jnp.ndarray:
-        """[..., n] symbol words -> [..., nroots] syndrome words (MXU)."""
+        """[..., n] symbol words -> [..., nroots] syndrome words (int8 matmul)."""
         cw_bits = bitops.words_to_bits(cw_words, self.gf.m)
         sb = gf2_matmul(cw_bits, self.synd_M)
         return bitops.bits_to_words(sb, self.gf.m)

@@ -1,11 +1,11 @@
 """Block-parallel Viterbi decoder for rate-1/2 binary convolutional codes
-(+ puncturing), TPU-native.
+(+ puncturing).
 
 Serves both mother codes in the framework: the DVB-T K=7 inner code
 (receiver-side counterpart of the coder the reference instantiates at
 /root/reference/dvbt-blade.py:182) and the ITU-T J.83B K=5 (25,37) trellis
 component (qam-blade.py:56).  A serial trellis walk is the worst possible
-shape for a TPU, so this module uses the standard high-rate receiver
+shape for an accelerator, so this module uses the standard high-rate receiver
 architecture instead: *block-parallel Viterbi with overlap truncation*.
 The coded stream is split into B overlapping blocks; every block runs its
 own add-compare-select recursion with an all-equal-metric start, and after

@@ -7,13 +7,13 @@ parallel/stream.py extends across hosts unchanged: the global mesh's
 ``seq`` axis spans every chip of every host, device d holds contiguous
 time-blocks [d*L, (d+1)*L), and the only cross-device traffic is the
 one-hop ``ppermute`` carry halo — at a host boundary that single hop rides
-DCN (or gloo on CPU), everything else ICI.  TS ingest is host-striped:
+the network (or gloo on CPU), everything else the host's own links.  TS ingest is host-striped:
 because blocks are distributed contiguously and ``jax.devices()`` is
 process-major, each host's stripe is one contiguous byte range of the
 input stream — each host reads only its own range (no host ever
 materializes the full stream).
 
-On TPU pods: ``initialize()`` is a thin wrapper over
+On a GPU cluster: ``initialize()`` is a thin wrapper over
 ``jax.distributed.initialize`` (coordinator on host 0).  For CI and this
 environment, the same code path runs as N localhost CPU processes with
 gloo collectives (tests/test_multihost.py proves a 2-process run is
@@ -31,7 +31,7 @@ def initialize(coordinator_address: str, num_processes: int,
                process_id: int, cpu_devices_per_process: int | None = None):
     """Join the distributed runtime.  Call before any other jax API.
 
-    On CPU (no TPU attached / JAX_PLATFORMS=cpu), requests
+    On CPU (no accelerator / JAX_PLATFORMS=cpu), requests
     ``cpu_devices_per_process`` virtual devices and gloo collectives so
     multi-host topologies are testable on one machine.
     """

@@ -1,8 +1,8 @@
 """Sequence-parallel DVB-T modulation over a device mesh.
 
 The reference has no distributed execution at all (SURVEY.md §2.2: no
-MPI/NCCL anywhere; GNU Radio gives it single-host pipeline threading).  The
-TPU design shards the *time axis* in contiguous blocks (device d holds
+MPI/NCCL anywhere; GNU Radio gives it single-host pipeline threading).  This
+design shards the *time axis* in contiguous blocks (device d holds
 superframes [d*L, (d+1)*L)), and
 the chain's tiny streaming state is NOT passed sequentially — every element
 of ``DvbtState`` is a pure function of the previous block's raw TS bytes:
@@ -19,8 +19,8 @@ per device — everything else is embarrassingly parallel.  The recompute cost
 is 12 packets of RS per device versus ~5000 packets of full chain: <0.3%.
 
 This file is the framework's "tensor/sequence parallelism" layer in the
-scaling-book sense: mesh axis ``seq``, shardings annotated with shard_map,
-collectives ride ICI.
+scaling-book sense: mesh axis ``seq``, shardings annotated with shard_map;
+the collectives are one-hop ``ppermute``s and one small ``all_gather``.
 """
 
 from __future__ import annotations
@@ -223,6 +223,22 @@ def derive_j83b_ilv_carry(prev_tail: jax.Array) -> jax.Array:
     return cw[-C:].astype(jnp.int32)
 
 
+def rotate_quadrants(cells: jax.Array, k: jax.Array) -> jax.Array:
+    """Rail-major cells [L, 2, n] times (−j)^k[l], per block l.
+
+    A quarter turn is a swap of the rails and a sign flip, so the rotation
+    is exact in float32 and needs no matmul:
+    k=0 → (x, y), k=1 → (y, −x), k=2 → (−x, −y), k=3 → (−y, x)."""
+    k = (k & 3)[:, None]
+    x, y = cells[:, 0], cells[:, 1]
+    swap = (k & 1) == 1
+    re = jnp.where(swap, y, x)
+    im = jnp.where(swap, x, y)
+    re = jnp.where(k >= 2, -re, re)
+    im = jnp.where((k == 1) | (k == 2), -im, im)
+    return jnp.stack([re, im], axis=1)
+
+
 def sharded_j83b_modulator(cfg, mesh: Mesh, axis: str = "seq"):
     """J.83B sequence sharding, contiguous-block layout (device d holds
     superblocks [d*L, (d+1)*L)), bit-identical to modulate_stream.
@@ -237,8 +253,9 @@ def sharded_j83b_modulator(cfg, mesh: Mesh, axis: str = "seq"):
         sums, all_gather of one int32 per device) is applied as an EXACT
         90°·k rotation of the emitted cells: advancing the precoder state
         by Δ quadrants multiplies every cell by (−j)^Δ (the constellation's
-        rotation symmetry, tests/test_j83b_invariants.py), and the exact
-        0/±1 rotation matrix keeps float32 bit-identity.
+        rotation symmetry, tests/test_j83b_invariants.py), and a quarter
+        turn is a rail swap and sign flip (rotate_quadrants), exact in
+        float32.
     The RRC filter history is the previous block's last 49 rotated cells —
     local for blocks 1..L−1, one 49-cell ppermute at device boundaries.
     """
@@ -247,11 +264,6 @@ def sharded_j83b_modulator(cfg, mesh: Mesh, axis: str = "seq"):
     blk = txq.PACKETS_PER_SUPERBLOCK * 188
     halo = J83B_HALO_PACKETS * 188
     conv_a_const, conv_b_const = _j83b_conv_consts()
-    # (x + iy)·(−j)^Δ as an exact 0/±1 matrix acting on (x, y) rows
-    rot_mats = np.array([[[1, 0], [0, 1]],
-                         [[0, -1], [1, 0]],
-                         [[-1, 0], [0, -1]],
-                         [[0, 1], [-1, 0]]], dtype=np.float32)
 
     def local_fn(ts_local: jax.Array) -> jax.Array:
         L = ts_local.shape[0]
@@ -291,10 +303,7 @@ def sharded_j83b_modulator(cfg, mesh: Mesh, axis: str = "seq"):
         totals = jax.lax.all_gather(jnp.sum(q_sums), axis)  # [n_dev]
         dev_excl = jnp.sum(
             jnp.where(jnp.arange(n_dev) < d, totals, 0))
-        offsets = (local_excl + dev_excl) & 3               # [L]
-        # rails' = R^T @ rails (the pair-form out_d = Σ_c x_c·R[c,d])
-        cells = jnp.einsum("lcd,lcn->ldn", jnp.asarray(rot_mats)[offsets],
-                           cells, preferred_element_type=jnp.float32)
+        cells = rotate_quadrants(cells, local_excl + dev_excl)
 
         # ---- RRC histories: previous block's last 49 rotated cells ----
         my_last_cells = cells[-1, :, -49:]
@@ -328,8 +337,8 @@ def batched_dvbt_modulator(cfg: DvbtConfig):
     for sequence sharding, applied to a batch of consecutive superframes in
     ONE dispatch — every block's stream state is recomputed from its
     predecessor's 12-packet tail, so the whole batch vmaps with no serial
-    dependency.  This is the serving shape (amortizes dispatch + pads better
-    on the MXU/VPU than one superframe at a time).
+    dependency.  This is the serving shape (amortizes dispatch over several
+    superframes).
 
     Returns jit'd fn(ts_blocks [B, blk], prev_tail [12*188], start_idx)
     → iq [B, samples, 2]; for a fresh stream pass start_idx=0 (prev_tail is

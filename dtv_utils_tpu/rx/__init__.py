@@ -5,6 +5,6 @@ receivers over the air (/root/reference/README:26-28) — hardware this
 environment does not have.  These receivers close that loop in software:
 IQ in, transport stream out, through real receiver algorithms (FFT +
 pilot-referenced extraction, TPS/L1 decode, Viterbi, Berlekamp-Massey RS,
-LDPC/BCH syndrome checks), all TPU-resident.  They double as the
+LDPC/BCH syndrome checks), all device-resident.  They double as the
 integration proof that the modulator output is decodable end-to-end.
 """

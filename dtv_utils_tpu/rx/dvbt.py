@@ -1,10 +1,10 @@
-"""DVB-T receiver (EN 300 744), TPU-native.
+"""DVB-T receiver (EN 300 744).
 
 Software counterpart of the consumer receivers the reference validates
 against over the air (README:26-28; TX chain /root/reference/
 dvbt-blade.py:179-210).  Inverts the full tx/dvbt.py chain:
 
-  IQ → CP strip → forward FFT (MXU matmul DFT) → carrier extraction →
+  IQ → CP strip → forward FFT → carrier extraction →
   pilot-phase detection → TPS decode (differential + BCH syndrome check) →
   composed de-interleave gather → max-log SOFT demap (per-bit LLRs) →
   depuncture → block-parallel soft Viterbi (ops/viterbi.py) → Forney
@@ -188,7 +188,8 @@ def detect_symbol_phase(cfg: DvbtConfig, carriers: jnp.ndarray) -> jnp.ndarray:
     style validation that the frame structure is where the config says."""
     p = _rx_plan(cfg)
     ref = jnp.asarray(p["scat_ref"])           # [4, K]
-    score = jnp.einsum("lk,pk->lp", carriers[..., 0], ref)
+    score = jnp.einsum("lk,pk->lp", carriers[..., 0], ref,
+                       precision=jax.lax.Precision.HIGHEST)
     return jnp.argmax(score, axis=1)
 
 

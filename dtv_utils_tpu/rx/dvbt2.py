@@ -1,4 +1,4 @@
-"""DVB-T2 receiver (EN 302 755), TPU-native.
+"""DVB-T2 receiver (EN 302 755).
 
 Inverts the full tx/dvbt2.py chain for one or more T2 frames:
 

@@ -1,4 +1,4 @@
-"""ITU-T J.83 Annex B 64-QAM cable receiver, TPU-native.
+"""ITU-T J.83 Annex B 64-QAM cable receiver.
 
 Inverts the tx/j83b.py chain (reference TX: /root/reference/
 qam-blade.py:50-79; the reference has no receiver — cable set-top hardware
@@ -95,7 +95,7 @@ def _jit_front(cfg: J83bConfig, n_iq: int):
         # which is exactly the matched filter y[i] = sum_j taps[j]·x[i+j]
         y = jax.lax.conv_general_dilated(
             xp[:, None, :], jnp.asarray(taps)[None, None, :],
-            (1,), "VALID")[:, 0, :]
+            (1,), "VALID", precision=jax.lax.Precision.HIGHEST)[:, 0, :]
         n_sym = n_iq // 2
         idx = 2 * jnp.arange(n_sym) + mp["off"]
         sym = y[:, idx].T / mp["scale"]               # [n_sym, 2]

@@ -1,4 +1,4 @@
-"""DVB-T modulator (EN 300 744), TPU-native.
+"""DVB-T modulator (EN 300 744).
 
 Re-expresses the reference transmit chain — the 12-block GNU Radio flowgraph
 at /root/reference/dvbt-blade.py:179-210 (energy dispersal → RS(204,188) →
@@ -7,7 +7,7 @@ inner interleavers → QAM map → pilots/TPS → IFFT → cyclic prefix → ×c
 — as ONE jit-compiled array program over a whole superframe:
 
   * all interleavers are precomputed static gathers;
-  * RS parity is an int8 MXU matmul over GF(2) bitplanes;
+  * RS parity is an int8 matmul over GF(2) bitplanes;
   * the convolutional coder is a handful of shifted XORs;
   * 272 OFDM symbols IFFT as one batched FFT.
 
@@ -20,10 +20,10 @@ Output amplitude matches the reference convention: unnormalized (FFTW-style)
 inverse FFT scaled by 0.0022097087 (dvbt-blade.py:187-189; the script uses
 this constant for every mode/constellation).
 
-IQ is float32 re/im reals (no complex dtype on this TPU backend): (re, im)
-pairs [..., 2] mid-chain, rail-major [2, n] for the FFT working set and
-the materialized output (core/cplx.py explains the two layouts), with the
-IFFT as batched MXU matmuls on rails (ops/cfft.fft_ri).
+IQ is float32 re/im reals: (re, im) pairs [..., 2] mid-chain, rail-major
+[2, n] for the FFT working set and the materialized output (core/cplx.py
+explains the two layouts), with the IFFT batched over symbols
+(ops/cfft.fft_ri).
 """
 
 from __future__ import annotations
@@ -101,7 +101,7 @@ def _plan(cfg: DvbtConfig):
     # Conv-encode + puncture + demux + bit-interleaver roll compose to a
     # GF(2)-linear, periodic map from input bits to cell bit-planes: over a
     # period of P cells the whole thing is cells = (window @ B) mod 2 for a
-    # small binary matrix B — the MXU formulation (each output bit is the
+    # small binary matrix B — one integer matmul (each output bit is the
     # XOR of the G1/G2 taps of one input step).  P = lcm(126, K/gcd(v,K)).
     from dtv_utils_tpu.ops.convcode import G1_TAPS, G2_TAPS
     per = len(xp)
@@ -184,7 +184,7 @@ def encode_to_carriers(cfg: DvbtConfig, ts: jax.Array,
     dispersed = ts ^ jnp.asarray(p["masks"])[state.packet_phase % 8]
     new_phase = (state.packet_phase + n_pkt) % 8
 
-    # 2. RS(204,188) — MXU bit-matmul per packet
+    # 2. RS(204,188) — bit-matmul per packet
     pkts = dispersed.reshape(n_pkt, 188)
     coded = DVBT_RS().encode_bytes(pkts).reshape(n_pkt * 204)
 
@@ -201,9 +201,8 @@ def encode_to_carriers(cfg: DvbtConfig, ts: jax.Array,
     n_bytes = n_pkt * 204
     rows = n_bytes // OUTER_I
     extT = ext.reshape(-1, OUTER_I).T                  # [12, C/12 + rows]
-    # static per-branch slices (starts are Python ints; a vmapped
-    # dynamic_slice forced dynamic lowering that dominated XLA compile
-    # time on the TPU backend — see tx/j83b.py interleave)
+    # static per-branch slices (starts are Python ints, so no dynamic-slice
+    # lowering — see tx/j83b.py interleave)
     branches = jnp.stack(
         [jax.lax.slice(extT, (b, C // OUTER_I - OUTER_M * b),
                        (b + 1, C // OUTER_I - OUTER_M * b + rows))[0]
@@ -211,7 +210,7 @@ def encode_to_carriers(cfg: DvbtConfig, ts: jax.Array,
     outer = branches.T.reshape(n_bytes)
     new_outer_carry = ext[-C:]
 
-    # 4+5. inner coder + puncture + demux + bit interleave as ONE int8 MXU
+    # 4+5. inner coder + puncture + demux + bit interleave as ONE int8
     # matmul over GF(2): cell bit-planes = (windows @ B) & 1, where windows
     # is the bit stream viewed as overlapping [M, W] rows (two aligned
     # reshapes — no gathers) and B is the tiny precomputed generator matrix.
@@ -262,11 +261,8 @@ def carriers_to_iq(cfg: DvbtConfig, carriers: jax.Array) -> jax.Array:
     """Stages 9-10: carrier grid [n_sym, K, 2] → rail-major IQ
     [2, n_sym * (fft + guard)].
 
-    Rail-major output because this buffer is ALWAYS materialized (it is
-    the jit result): a [n, 2] pair layout would put the 2-wide pair axis
-    in the TPU's 128-lane minor dimension and pad the buffer 64x (the
-    j83b chain measured 469 MB -> 15.8 GB; see tx/j83b.py r5).  Pairs
-    remain the host format via cplx.rails_to_np."""
+    Rail-major output (the long axis minor); pairs remain the host format
+    via cplx.rails_to_np."""
     from dtv_utils_tpu.ops.cfft import fft_ri, ifftshift_rails
     fft = cfg.fft_size
     gi = cfg.guard_samples
@@ -274,7 +270,7 @@ def carriers_to_iq(cfg: DvbtConfig, carriers: jax.Array) -> jax.Array:
     n_sym = carriers.shape[0]
     # center carriers (zeros_on_left = ceil((fft-K)/2), as gr-dtv lays out);
     # rails from here on so the FFT working set and output keep the long
-    # axis minor (no 2-lane tile padding)
+    # axis minor
     rails = jnp.moveaxis(carriers, -1, 0)              # [2, n_sym, K]
     left = (fft - K + 1) // 2
     spec = jnp.zeros((2, n_sym, fft), dtype=jnp.float32)

@@ -1,4 +1,4 @@
-"""DVB-T2 modulator (EN 302 755), TPU-native.
+"""DVB-T2 modulator (EN 302 755).
 
 Re-expresses the reference chain — the 14-block GNU Radio flowgraph at
 /root/reference/dvbt2-blade.py:119-156 (BB header → BB scrambler → BCH →
@@ -10,7 +10,7 @@ jit array program over an *interleaving frame* (= one T2 frame here):
     SYNCD) is a phase-parameterized gather + two GF(2) bit-matmuls — no
     per-packet loop, the packet phase lives in a tiny stream-state pytree;
   * BB scrambling is one XOR with a precomputed PRBS;
-  * BCH parity is an MXU bit-matmul [blocks, kbch] x [kbch, 160|192];
+  * BCH parity is a bit-matmul [blocks, kbch] x [kbch, 160|192];
   * LDPC (IRA) encoding is a gather + scatter-XOR over the accumulator
     edges followed by a prefix-XOR (cumsum mod 2) — the two sequential
     structures of the standard become two parallel primitives;
@@ -67,7 +67,7 @@ def _plan(cfg: Dvbt2Config):
     # LDPC accumulator edges in the rotated quasi-cyclic basis: address
     # a = c + q*s of group g means parity[(s+m)%360, c] ^= info[g, m] — so
     # the whole pre-accumulator is a [360, E] gather plus one tiny int8
-    # matmul against an [E, q] column-selector (MXU parity via integer sum).
+    # matmul against an [E, q] column-selector (parity via integer sum).
     rows_ldpc = T.ldpc_accumulator_rows(cfg.code_rate.value, cfg.nldpc,
                                         cfg.nbch)
     q = cfg.ldpc_q
@@ -195,7 +195,7 @@ def fec_encode(cfg: Dvbt2Config, bbframes: jax.Array) -> jax.Array:
 
     # rotated-basis accumulator (see _plan): each edge contributes one
     # STATIC contiguous 360-slice of the doubled info; the column scatter is
-    # one [b,360,E]x[E,q] int8 MXU matmul (Σ mod 2 == XOR).
+    # one [b,360,E]x[E,q] int8 matmul (Σ mod 2 == XOR).
     q = cfg.ldpc_q
     b = info.shape[0]
     info3 = info.reshape(b, -1, 360).astype(jnp.int8)
@@ -219,14 +219,12 @@ def interleave_and_map(cfg: Dvbt2Config, fecframes: jax.Array) -> jax.Array:
 
     Rail-major from here to the OFDM back end: the payload-sized gathers
     downstream (cell/time interleave, frame assembly — ~2M cells for the
-    32K BBC frame) materialize their outputs, and a pair-minor [*, 2]
-    layout is tile-padded 64x on TPU (see tx/j83b.py r5)."""
+    32K BBC frame) keep the long axis minor."""
     p = _plan(cfg)
     v = cfg.constellation.bits_per_symbol
     x = fecframes
     # compose bit interleaver + demux into one permutation, applied as a ROW
-    # gather on the transposed frame (minor-axis gathers relayout per
-    # element on TPU)
+    # gather on the transposed frame
     nsub = len(p["dperm"])
     nbits = x.shape[1]
     comp = np.arange(nbits, dtype=np.int32)
@@ -235,9 +233,7 @@ def interleave_and_map(cfg: Dvbt2Config, fecframes: jax.Array) -> jax.Array:
     comp = comp.reshape(-1, nsub)[:, np.asarray(p["dperm"])].reshape(-1)
     yT = jnp.take(x.T, jnp.asarray(comp), axis=0).astype(jnp.int32)
     # bit-to-word sum as v strided row-slices of the TRANSPOSED stream
-    # (lane dim stays `blocks`): the previous reshape to [blocks, nc, v]
-    # put the v-bit axis in the 128-lane minor dim, materializing a
-    # 16x-padded temp (838 MB measured at 32K — PROFILE_r05).  Integer
+    # (minor dim stays `blocks`, no [blocks, nc, v] temp).  Integer
     # arithmetic, identical values.
     pow2 = [int(w) for w in np.asarray(p["pow2"]).reshape(-1)]
     words = sum(yT[e::v, :] * pow2[e] for e in range(v)).T
@@ -565,9 +561,8 @@ def grid_to_iq(cfg: Dvbt2Config, grid: jax.Array) -> jax.Array:
     """Carrier grid rails [2, L_F, K] -> one T2 frame of rail-major IQ
     [2, 2048 + L_F*(fft+gi)]: centered IFFT, [tone-reservation PAPR,]
     cyclic prefix, P1 prepend.  Rail-major end-to-end: every
-    payload-sized buffer keeps its long axis minor (the pair axis in the
-    TPU's 128-lane minor dim would tile-pad 64x), and the FFT itself runs
-    on separate re/im rails (ops/cfft.fft_ri) with no pair stacks."""
+    payload-sized buffer keeps its long axis minor, and the FFT takes
+    separate re/im rails (ops/cfft.fft_ri)."""
     from dtv_utils_tpu.ops.cfft import fft_ri, ifftshift_rails
     fft = cfg.fft_size
     gi = cfg.guard_samples

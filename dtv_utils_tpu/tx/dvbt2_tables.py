@@ -41,7 +41,7 @@ from dtv_utils_tpu.core.galois import (GF2_14_DVB, GF2_16_DVB,
 @functools.cache
 def bch_parity_matrix(frame_size: T2FrameSize, t: int,
                       kbch: int) -> np.ndarray:
-    """GF(2) matrix [kbch, t*m]: parity = msg_bits @ M (MXU matmul)."""
+    """GF(2) matrix [kbch, t*m]: parity = msg_bits @ M (int8 matmul)."""
     gf = GF2_16_DVB if frame_size is T2FrameSize.NORMAL else GF2_14_DVB
     g = bch_generator_poly(gf, t)
     return gf2_poly_mod_matrix(g, kbch)

@@ -1,4 +1,4 @@
-"""ITU-T J.83 Annex B (SCTE 07) 64-QAM cable modulator, TPU-native.
+"""ITU-T J.83 Annex B (SCTE 07) 64-QAM cable modulator.
 
 Re-expresses the reference chain /root/reference/qam-blade.py:50-79
 (transport framing → 7-bit symbolization → RS(128,122) over GF(128) →
@@ -13,7 +13,7 @@ Rate identity (validates the structure against README:79's 26.970352 Mbps):
   5056941 sym/s · 6 b/sym · 14/15 (TCM) · 8960/8967 (FSYNC) · 122/128 (RS)
   = 26.970352 Mbps exactly.
 
-Sequential elements are vectorized the TPU way:
+Sequential elements are vectorized as array programs:
   * both rate-1/2 binary convolutional coders (G=(25,37) octal, 16-state)
     are shifted-XOR filters over the whole substream;
   * the 90°-invariance differential precoder is a prefix-XOR
@@ -91,8 +91,7 @@ CONSTELLATION_64_PAIRS = np.stack(
     [CONSTELLATION_64.real, CONSTELLATION_64.imag], axis=-1
 ).astype(np.float32)
 # rail-major LUT for the device path (float32 [2, 64]): indexing with a
-# symbol array gives [2, n] — lane dim n, no TPU tile padding (a [n, 2]
-# gather output's lane dim of 2 pads 64x; core/cplx.rails_to_np)
+# symbol array gives the rail-major cells [2, n] (core/cplx.rails_to_np)
 CONSTELLATION_64_RAILS = np.ascontiguousarray(CONSTELLATION_64_PAIRS.T)
 
 
@@ -231,10 +230,8 @@ def interleave(symbols: jax.Array, carry: jax.Array) -> tuple[jax.Array, jax.Arr
     rows = n // ILV_I
     ext = jnp.concatenate([carry, symbols])
     extT = ext.reshape(-1, ILV_I).T                  # [I, C/I + rows]
-    # branch starts C/I - J*b are Python ints — STATIC slices, not a
-    # vmapped dynamic_slice (traced per-lane starts forced dynamic-slice
-    # lowering whose alias/layout analysis dominated the chain's XLA
-    # compile time on the TPU backend; 128 static slices fuse trivially)
+    # branch starts C/I - J*b are Python ints — STATIC slices, which fuse
+    # into one copy (no dynamic-slice lowering)
     branches = jnp.stack(
         [jax.lax.slice(extT, (b, C // ILV_I - ILV_J * b),
                        (b + 1, C // ILV_I - ILV_J * b + rows))[0]
@@ -348,36 +345,14 @@ def rrc_interpolate(cells: jax.Array, tail: jax.Array,
     """Interpolate-by-2 polyphase RRC: rail-major IQ [2, n] → [2, 2n] +
     history [2, 49].
 
-    output[:, 2m + p] = Σ_k h[2k + p] · x[:, m + 49 − k]: one real conv
-    per phase over (re, im) as a batch of 2 — rail-major makes complex
-    convolution two float32 convolutions with the long axis minor, the
-    native TPU formulation (no 2-lane tile padding anywhere).
+    output[:, 2m + p] = Σ_k h[2k + p] · x[:, m + 49 − k]: per phase, a
+    weighted sum of 50 shifted slices of the (re, im) rails, which XLA
+    fuses into one elementwise loop (one read of the input, one write of
+    the output).  Plain float32 multiplies and adds: no dot or conv, so no
+    reduced-precision (TF32) path exists.
     """
     n = cells.shape[1]
-    ext = jnp.concatenate([tail, cells], axis=1)     # [2, 49 + n]
-    x = ext
-    from dtv_utils_tpu.ops.fir import pallas_enabled, polyphase_interp2
-    if jax.default_backend() == "tpu" and pallas_enabled():
-        # Pallas overlap-save kernel: one HBM read + one write per sample
-        out = polyphase_interp2(x, taps, n)          # [2, 2n]
-    elif jax.default_backend() == "tpu":
-        out = _interp2_slices(x, taps, n)
-    else:
-        # CPU (the sharding-verification platform): a dedicated conv op.
-        # The slices formulation is an elementwise fusion whose fma
-        # contraction choices depend on the SURROUNDING program, so the
-        # serial and shard_map programs disagreed at 1 ulp on ~0.03% of
-        # phase-0 outputs; lax.conv lowers as its own operation and is
-        # bit-stable across program contexts (tests/test_parallel.py's
-        # sharded == modulate_stream bit-identity relies on this).
-        out = _interp2_conv(x, taps, n)
-    return out, ext[:, -49:]
-
-
-def _interp2_slices(x: jax.Array, taps: np.ndarray, n: int) -> jax.Array:
-    """XLA formulation: weighted sum of 50 shifted slices per phase (the
-    rank-1 lax.conv path is ~20 ms for this shape on TPU; see
-    _interp2_conv for why the CPU path uses a dedicated conv op instead)."""
+    x = jnp.concatenate([tail, cells], axis=1)       # [2, 49 + n]
     outs = []
     for p in range(2):
         hp = taps[p::2][::-1]                        # [50], flipped
@@ -386,22 +361,8 @@ def _interp2_slices(x: jax.Array, taps: np.ndarray, n: int) -> jax.Array:
             term = jax.lax.slice(x, (0, j), (2, j + n)) * jnp.float32(h)
             y = term if y is None else y + term
         outs.append(y)                               # [2, n]
-    return jnp.stack(outs, axis=-1).reshape(2, -1)   # [2, 2n] interleaved
-
-
-def _interp2_conv(x: jax.Array, taps: np.ndarray, n: int) -> jax.Array:
-    """lax.conv_general_dilated formulation: the polyphase interpolator as
-    two VALID correlations over the rail axis as batch.  Slower than the
-    slices fusion on TPU but lowered as a dedicated op, so its rounding
-    does not depend on the surrounding program — required for the
-    serial == sharded bit-identity contract on the CPU mesh."""
-    outs = []
-    for p in range(2):
-        hp = jnp.asarray(np.ascontiguousarray(taps[p::2][::-1]))   # [50]
-        y = jax.lax.conv_general_dilated(
-            x[:, None, :], hp[None, None, :], (1,), "VALID")       # [2,1,n]
-        outs.append(y[:, 0, :n])
-    return jnp.stack(outs, axis=-1).reshape(2, -1)   # [2, 2n] interleaved
+    out = jnp.stack(outs, axis=-1).reshape(2, -1)    # [2, 2n] interleaved
+    return out, x[:, -49:]
 
 
 # ---------------------------------------------------------------------------
@@ -411,12 +372,7 @@ def _interp2_conv(x: jax.Array, taps: np.ndarray, n: int) -> jax.Array:
 def encode_to_cells(cfg: J83bConfig, ts: jax.Array,
                     state: J83bState) -> tuple[jax.Array, J83bState]:
     """Stages framing … 64-QAM map: ts uint8 [6405*188] → rail-major IQ
-    cells [2, 1,806,210] + next state (rrc_tail unchanged here).
-
-    Rail-major because a [n, 2] pair layout's 2-lane minor dim is padded
-    to the TPU's 128-lane tile on every materialized buffer (measured
-    64x HBM expansion; it OOMed the 8-block batched compile and made
-    every smaller batch pathologically slow to compile)."""
+    cells [2, 1,806,210] + next state (rrc_tail unchanged here)."""
     del cfg
     n_pkt = PACKETS_PER_SUPERBLOCK
     framed = transport_framing(ts.reshape(n_pkt, 188)).reshape(-1)

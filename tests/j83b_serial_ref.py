@@ -15,6 +15,18 @@ from dtv_utils_tpu.core.galois import GF128
 from dtv_utils_tpu.tx import j83b as J
 
 
+def rrc_polyphase(cells: np.ndarray, taps: np.ndarray) -> np.ndarray:
+    """Float64 polyphase interpolate-by-2 from a zero history, one
+    np.convolve per phase: out[2m + p] = Σ_k taps[2k + p] · cells[m − k]
+    (the fast counterpart of SerialJ83b.rrc, for whole superblocks)."""
+    n = len(cells)
+    out = np.empty(2 * n, dtype=np.complex128)
+    for p in range(2):
+        out[p::2] = np.convolve(cells.astype(np.complex128),
+                                taps[p::2].astype(np.float64))[:n]
+    return out
+
+
 class SerialJ83b:
     def __init__(self):
         self.branches = [deque([0] * (b * J.ILV_J)) for b in range(J.ILV_I)]

@@ -1,7 +1,7 @@
-"""bench.py's fail-open measurement loop (VERDICT r4 next-#1): the metric
+"""bench.py's fail-open measurement loop: the metric
 must be emitted after warmup + the FIRST timed segment, every refinement
 re-emits, and an expired deadline stops refinement but never suppresses
-the first emission.  Pure-logic test: fake fn/inputs, no TPU."""
+the first emission.  Pure-logic test: fake fn/inputs, no device."""
 
 import importlib.util
 import io

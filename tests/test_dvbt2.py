@@ -94,8 +94,8 @@ def test_map_and_interleave_vs_serial():
 
 
 def test_word_sum_strided_equals_reshape():
-    """interleave_and_map's strided-slice bit-to-word sum (r5: avoids a
-    16x-padded [blocks, nc, v] temp on TPU) must equal the direct
+    """interleave_and_map's strided-slice bit-to-word sum (no [blocks, nc,
+    v] temp) must equal the direct
     reshape-and-dot formulation on random bits."""
     cfg = CFG
     from dtv_utils_tpu.tx.dvbt2 import _plan

@@ -12,7 +12,7 @@ import pytest
 from dtv_utils_tpu.core import cplx
 from dtv_utils_tpu.core.config import J83bConfig
 from dtv_utils_tpu.tx import j83b as J
-from j83b_serial_ref import SerialJ83b
+from j83b_serial_ref import SerialJ83b, rrc_polyphase
 
 
 RNG = np.random.default_rng(0x1383B)
@@ -117,19 +117,20 @@ def test_modulate_stream_shapes():
     assert float(cfg.sample_rate) == pytest.approx(10_113_882.0)
 
 
-def test_pallas_fir_matches_slice_formulation():
-    """The Pallas overlap-save kernel (interpret mode on CPU) must agree
-    with the XLA shifted-slice FIR to f32 last-ulp (XLA fuses the slice
-    formulation with FMAs; the grouping differs)."""
-    import jax.numpy as jnp
-    from dtv_utils_tpu.tx.j83b import J83bConfig, rrc_taps, _interp2_slices
-    from dtv_utils_tpu.ops.fir import polyphase_interp2
-
+@pytest.mark.parametrize("n", [40_001, 4_099])
+def test_rrc_interpolator_vs_numpy_polyphase(n):
+    """The RRC interpolator against np.convolve at lengths that are no
+    multiple of any tile or block size, across a block boundary."""
     cfg = J83bConfig()
-    taps = rrc_taps(cfg)
-    rng = np.random.default_rng(3)
-    n = 40000                                       # not a tile multiple
-    x = jnp.asarray(rng.standard_normal((2, 49 + n)).astype(np.float32))
-    a = np.asarray(_interp2_slices(x, taps, n))
-    b = np.asarray(polyphase_interp2(x, taps, n))
-    np.testing.assert_allclose(a, b, atol=1e-6, rtol=1e-6)
+    taps = J.rrc_taps(cfg)
+    rng = np.random.default_rng(n)
+    cells = (rng.normal(size=2 * n) + 1j * rng.normal(size=2 * n)).astype(
+        np.complex64)
+    want = rrc_polyphase(cells, taps)
+    st = J.init_state(cfg)
+    got1, tail = J.rrc_interpolate(
+        jnp.asarray(cplx.rails_from_np(cells[:n])), st.rrc_tail, taps)
+    got2, _ = J.rrc_interpolate(
+        jnp.asarray(cplx.rails_from_np(cells[n:])), tail, taps)
+    got = np.concatenate([cplx.rails_to_np(got1), cplx.rails_to_np(got2)])
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)

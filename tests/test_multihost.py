@@ -40,7 +40,9 @@ def test_two_process_sharded_dvbt_bit_identical(tmp_path):
     env = dict(JAX_PLATFORMS="", PYTHONPATH=str(WORKER.parent.parent))
     import os
     env = {**os.environ, **env}
-    env.pop("XLA_FLAGS", None)
+    # the workers pick their own device count; single-threaded as in
+    # conftest.py, since XLA:CPU's multi-threaded FFT is not reproducible
+    env["XLA_FLAGS"] = "--xla_cpu_multi_thread_eigen=false"
     procs = [subprocess.Popen(
         [sys.executable, str(WORKER), str(pid), "2", port, str(ts_path)],
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)

@@ -48,3 +48,25 @@ def test_papr_chunked_matches_oneshot(small_cfile):
                  "imag_pos", "imag_pos_offset", "imag_neg",
                  "imag_neg_offset"):
         assert getattr(one, attr) == getattr(many, attr), attr
+
+
+def test_papr_power_rounds_each_product():
+    """Device power == numpy's separately rounded i*i + q*q everywhere,
+    including the samples where a fused multiply-add would round
+    differently, and pass 1 reports numpy's first-occurrence peak."""
+    import jax
+    import jax.numpy as jnp
+
+    raw = np.random.default_rng(0).standard_normal(1 << 21,
+                                                   dtype=np.float32)
+    i, q = raw[0::2], raw[1::2]
+    want = i * i + q * q
+    fused = (i.astype(np.float64) ** 2
+             + (q * q).astype(np.float64)).astype(np.float32)
+    assert np.count_nonzero(fused != want) > 0     # the data can tell them
+    power = jax.jit(lambda r, z: papr._power_f32(r[0::2], r[1::2], z))
+    np.testing.assert_array_equal(
+        np.asarray(power(jnp.asarray(raw), papr.ZERO)), want)
+    vals, idxs = papr._pass1_chunk(jnp.asarray(raw), papr.ZERO)
+    k = int(np.argmax(want))
+    assert int(idxs[0]) == k and float(vals[0]) == float(want[k])

@@ -134,3 +134,29 @@ def test_sharded_dvbt2_equals_sequential():
                             in_sharding)
     got = cplx.rails_to_np(np.asarray(run(ts_dev)), axis=1)
     np.testing.assert_array_equal(got, want)
+
+
+def test_rotate_quadrants_equals_highest_einsum():
+    """The rail swap + sign flip equals the 0/±1 rotation-matrix einsum it
+    replaced (run at HIGHEST precision), bit for bit, for every k."""
+    from dtv_utils_tpu.parallel.stream import rotate_quadrants
+    from dtv_utils_tpu.tx import j83b as txq
+
+    rot_mats = np.array([[[1, 0], [0, 1]],
+                         [[0, -1], [1, 0]],
+                         [[-1, 0], [0, -1]],
+                         [[0, 1], [-1, 0]]], dtype=np.float32)
+    rng = np.random.default_rng(17)
+    words = rng.integers(0, 64, size=(8, 1000))
+    cells = jnp.asarray(
+        np.moveaxis(txq.CONSTELLATION_64_PAIRS[words], -1, 1))  # [8, 2, n]
+    k = jnp.asarray(np.arange(8, dtype=np.int32) * 3)            # all k mod 4
+    want = jnp.einsum("lcd,lcn->ldn", jnp.asarray(rot_mats)[k & 3], cells,
+                      precision=jax.lax.Precision.HIGHEST)
+    got = rotate_quadrants(cells, k)
+    np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
+    # and it is the complex product by (−j)^k
+    c = cplx.rails_to_np(np.asarray(cells), axis=1)
+    np.testing.assert_array_equal(
+        cplx.rails_to_np(np.asarray(got), axis=1),
+        c * ((-1j) ** (np.arange(8) * 3 % 4))[:, None])

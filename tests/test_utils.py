@@ -103,9 +103,9 @@ def test_cli_resume_matches_oneshot(tmp_path):
 
 def test_profile_bytes_model():
     """The roofline bytes model is argument+result buffer bytes — a true
-    lower bound on HBM traffic — not XLA's logical 'bytes accessed' (which
-    exceeds physical traffic for gather-heavy stages and scored stages at
-    an impossible >100% of roofline in PROFILE_r03)."""
+    lower bound on memory traffic — not XLA's logical 'bytes accessed'
+    (which exceeds physical traffic for gather-heavy stages and would score
+    them above 100% of roofline)."""
     import jax.numpy as jnp
 
     from dtv_utils_tpu.utils import profile
@@ -116,19 +116,19 @@ def test_profile_bytes_model():
     def gathery(x, idx):
         return x[idx] + x[idx] + x[idx]        # logical reads 3x the input
 
-    r = profile.profile_fn("gathery", gathery, (x, idx), n_variants=3)
+    r = profile.profile_fn("gathery", gathery, (x, idx), iters=3)
     in_b = 1024 * 128 * 4 + 1024 * 4
     out_b = 1024 * 128 * 4
     assert r.bytes_io == in_b + out_b
     # logical accounting counts the gather amplification; io must not
     assert r.bytes_xla >= r.bytes_io or r.bytes_xla == 0.0
-    if r.roofline_pct is not None:             # TPU only
+    if r.roofline_pct is not None:             # accelerators only
         assert r.roofline_pct <= 110.0         # <=100 + timer noise
 
 
 def test_profile_cli_streams_rows_as_measured(capsys, monkeypatch):
-    """`dtv profile -j` must emit each stage row the moment it is measured
-    (fail-open, r5): a budget kill mid-chain keeps the measured prefix.
+    """`dtv profile -j` must emit each stage row the moment it is measured:
+    a run killed mid-chain keeps the measured prefix.
     Fake two-stage chain; assert a row exists after the first stage even
     though the second raises."""
     import jax.numpy as jnp
@@ -137,7 +137,7 @@ def test_profile_cli_streams_rows_as_measured(capsys, monkeypatch):
 
     def fake_chain():
         profile.profile_fn("s1", lambda x: x + 1.0,
-                           (jnp.zeros(128, jnp.float32),), n_variants=3)
+                           (jnp.zeros(128, jnp.float32),), iters=3)
         raise RuntimeError("chain dies after stage 1")
 
     monkeypatch.setitem(profile.CHAINS, "fake", fake_chain)
@@ -151,21 +151,112 @@ def test_profile_cli_streams_rows_as_measured(capsys, monkeypatch):
     assert len(rows) == 1 and '"profile.fake.s1"' in rows[0]
 
 
-def test_profile_railifies_pair_minor_outputs():
-    """Stage outputs with a trailing size-2 pair axis are transposed to
-    rail-major inside the profiled function, so profiling never
-    materializes a 2-lane-minor buffer (64x tile padding on TPU)."""
+class _FakeDevice:
+    def __init__(self, platform, kind):
+        self.platform = platform
+        self.device_kind = kind
+
+
+def test_profile_peaks_none_on_cpu():
+    from dtv_utils_tpu.utils import profile
+    assert profile._peaks() is None
+
+
+def test_profile_peaks_unknown_gpu_is_an_error(monkeypatch):
+    import jax
+    import pytest
+
+    from dtv_utils_tpu.utils import profile
+    monkeypatch.setattr(jax, "devices",
+                        lambda *a: [_FakeDevice("gpu", "NVIDIA Mystery")])
+    with pytest.raises(ValueError, match="NVIDIA Mystery"):
+        profile._peaks()
+
+
+def test_profile_peaks_h100_found(monkeypatch):
+    import jax
+
+    from dtv_utils_tpu.utils import profile
+    monkeypatch.setattr(
+        jax, "devices",
+        lambda *a: [_FakeDevice("gpu", "NVIDIA H100 80GB HBM3")])
+    peaks = profile._peaks()
+    assert peaks.hbm_bytes == 3.35e12
+    assert peaks.int8_ops > peaks.fp32_flops > 0
+    assert "datasheet" in peaks.source
+
+
+def _gf2_dot(a, b):
+    import jax
+    import jax.numpy as jnp
+    acc = jax.lax.dot_general(a, b, (((a.ndim - 1,), (0,)), ((), ())),
+                              preferred_element_type=jnp.int32)
+    return (acc & 1).astype(jnp.uint8)
+
+
+def test_profile_int8_dot_flops_from_jaxpr():
+    """8-bit integer dots are counted 2·M·N·K, once per scan iteration;
+    float dots are left to the float32 bucket."""
     import jax
     import jax.numpy as jnp
 
     from dtv_utils_tpu.utils import profile
+    a = jnp.ones((5, 16, 32), jnp.int8)
+    b = jnp.ones((32, 8), jnp.int8)
+    x = jnp.ones((16, 32), jnp.float32)
 
-    def stage(x):
-        return jnp.stack([x, x + 1.0], axis=-1)     # [n, 2] pair-minor
+    def stage(a, b, x):
+        bits = jax.lax.scan(lambda c, ai: (c, _gf2_dot(ai, b)), 0, a)[1]
+        return bits, x @ x.T
+    jaxpr = jax.make_jaxpr(stage)(a, b, x).jaxpr
+    assert profile._int8_dot_flops(jaxpr) == 5 * 2 * 16 * 32 * 8
 
-    x = jnp.arange(64, dtype=jnp.float32)
-    wrapped = lambda *a: profile._railify(stage(*a))   # noqa: E731
-    out = jax.eval_shape(wrapped, x)
-    assert out.shape == (2, 64)
-    r = profile.profile_fn("pairy", stage, (x,), n_variants=3)
-    assert r.bytes_io == 64 * 4 + 2 * 64 * 4    # sizes unchanged by moveaxis
+
+def test_profile_int8_stage_share_at_most_100(monkeypatch):
+    """A GF(2) matmul stage scored with a float32 rate far below the CPU's
+    and an int8 rate far above it: the int8 dot must go against the int8
+    rate, so the share stays at or below 100% (against the float32 rate it
+    would be far above)."""
+    import jax.numpy as jnp
+
+    from dtv_utils_tpu.utils import profile
+    monkeypatch.setattr(profile, "_peaks", lambda: profile.Peaks(
+        fp32_flops=1e8, int8_ops=1e18, hbm_bytes=1e18, source="test"))
+    a = jnp.ones((64, 4096), jnp.int8)
+    b = jnp.ones((4096, 64), jnp.int8)
+    r = profile.profile_fn("gf2", _gf2_dot, (a, b), iters=3)
+    assert r.int8_flops == 2 * 64 * 4096 * 64
+    assert r.flops / 1e8 > 10 * r.ms / 1e3     # the float32 rate overshoots
+    assert 0.0 <= r.roofline_pct <= 100.0
+
+
+def _cache_dir_in_fresh_process(env_dir):
+    """The compile-cache dir a fresh process gets after importing the
+    package, with JAX_COMPILATION_CACHE_DIR set to env_dir (or unset)."""
+    import os
+    import pathlib
+    import subprocess
+    import sys
+    repo = pathlib.Path(__file__).resolve().parents[1]
+    env = {k: v for k, v in os.environ.items()
+           if k != "JAX_COMPILATION_CACHE_DIR"}
+    if env_dir is not None:
+        env["JAX_COMPILATION_CACHE_DIR"] = env_dir
+    env["PYTHONPATH"] = str(repo)
+    r = subprocess.run(
+        [sys.executable, "-c",
+         "import dtv_utils_tpu, jax; "
+         "print(jax.config.jax_compilation_cache_dir)"],
+        capture_output=True, text=True, env=env, cwd="/")
+    assert r.returncode == 0, r.stderr
+    return r.stdout.strip(), repo
+
+
+def test_compile_cache_honours_env(tmp_path):
+    got, _ = _cache_dir_in_fresh_process(str(tmp_path / "x"))
+    assert got == str(tmp_path / "x")
+
+
+def test_compile_cache_defaults_to_checkout():
+    got, repo = _cache_dir_in_fresh_process(None)
+    assert got == str(repo / ".jax_cache")
